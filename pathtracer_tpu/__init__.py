@@ -1,7 +1,8 @@
-"""pathtracer_tpu — a TPU-native differentiable Monte Carlo path tracer in JAX.
+"""pathtracer_tpu — a differentiable Monte Carlo path tracer in JAX.
 
 A from-scratch re-design of the capabilities of the reference CUDA/OpenGL path
-tracer (Nablax/Path-Tracer-CUDA-OpenGL) for TPU hardware:
+tracer (Nablax/Path-Tracer-CUDA-OpenGL) as a JAX wavefront program, run on
+NVIDIA GPUs:
 
 - wavefront pipeline over SoA ray/primitive buffers (no megakernel, no
   per-thread stacks) — the bounce loop is a ``lax.scan``, shading is
@@ -11,10 +12,11 @@ tracer (Nablax/Path-Tracer-CUDA-OpenGL) for TPU hardware:
 - stackless ("threaded") BVH traversal: one fat-node gather per step,
 - stateless counter-based RNG (threefry) instead of per-pixel curand states,
 - differentiable shading with detached-visibility estimators,
-- multi-chip scaling via ``jax.sharding.Mesh`` + ``shard_map`` over ray tiles
+- multi-device scaling via ``jax.sharding.Mesh`` + ``shard_map`` over ray tiles
   with the scene/BVH replicated and gradient ``psum``.
 
-Reference behavior citations use ``file:line`` into ``/root/reference``.
+Reference behavior citations use ``file:line`` into the reference CUDA
+renderer's source tree.
 """
 
 __version__ = "0.2.0"

@@ -13,22 +13,22 @@ import argparse
 import sys
 import time
 
+from pathtracer_tpu.config import ACCELS
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pathtracer_tpu",
-        description="TPU-native differentiable Monte Carlo path tracer")
+        description="Differentiable Monte Carlo path tracer (JAX)")
     p.add_argument("--scene", default="triangle",
                    help="test | triangle | random | cornell | bunny")
     p.add_argument("--width", type=int, default=800)
     p.add_argument("--height", type=int, default=450)
     p.add_argument("--spp", type=int, default=100)
     p.add_argument("--max-depth", type=int, default=50)
-    p.add_argument("--accel", default=None,
-                   choices=["auto", "cluster", "tensor", "pallas", "bvh",
-                            "brute"],
+    p.add_argument("--accel", default=None, choices=ACCELS,
                    help="acceleration structure (default auto: dense sweep"
-                        " below ~1k prims, cluster march above; with "
+                        " below ~1k prims, LBVH traversal above; with "
                         "--preset, overrides the preset's accel)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ray-chunk", type=int, default=None,
@@ -59,13 +59,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "chunks; re-running resumes where it stopped")
     p.add_argument("--spp-per-pass", type=int, default=8,
                    help="samples per device execution (bounds program "
-                        "runtime; long monolithic executions can trip the "
-                        "TPU watchdog)")
+                        "runtime and gives progress lines)")
     p.add_argument("--interactive", action="store_true",
                    help="progressive terminal viewer with WASD/QE camera")
     p.add_argument("--platform", default=None,
-                   help="force a JAX platform (e.g. cpu, tpu); wins over "
-                        "site-level JAX_PLATFORMS overrides")
+                   help="JAX platform to run on; without it a GPU is "
+                        "required (use 'cpu' for small CPU renders)")
     p.add_argument("--mesh", default=None,
                    help="render sharded over a device mesh: '8' (rays only) "
                         "or '4x2' (rays x spp axes); config-5 path")
@@ -90,9 +89,16 @@ def main(argv=None) -> int:
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={args.host_devices}")
+    import jax
     if args.platform:
-        import jax
         jax.config.update("jax_platforms", args.platform)
+    from pathtracer_tpu import runtime
+    if args.platform is None and jax.default_backend() != "gpu":
+        print(f"error: no GPU found (JAX platform "
+              f"{jax.default_backend()!r}); pass --platform cpu to render "
+              "on the CPU", file=sys.stderr)
+        return 2
+    runtime.enable_compile_cache()
 
     # Defer heavy imports so --help is instant.
     import numpy as np
@@ -103,14 +109,9 @@ def main(argv=None) -> int:
 
     try:
         if args.preset:
-            from pathtracer_tpu.presets import get_preset
+            from pathtracer_tpu.presets import get_preset, scale_config
             scene, cam, cfg = get_preset(args.preset)
-            if args.scale != 1.0:
-                s = args.scale
-                cfg = cfg.replace(width=max(8, int(cfg.width * s)),
-                                  height=max(8, int(cfg.height * s)),
-                                  spp=max(1, int(cfg.spp * s)))
-            cfg = cfg.replace(seed=args.seed)
+            cfg = scale_config(cfg, args.scale).replace(seed=args.seed)
             if args.accel:
                 cfg = cfg.replace(accel=args.accel)
             if args.ray_chunk:

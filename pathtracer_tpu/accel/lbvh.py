@@ -1,6 +1,6 @@
 """On-device LBVH construction (Karras 2012).
 
-TPU-native rebuild of the reference's hybrid host/device LBVH
+On-device rebuild of the reference's hybrid host/device LBVH
 (``utils/bvh.h:132-145``): morton codes + sort + topology emit + bbox fit all
 run as one jitted XLA computation. Differences by design (SURVEY §5/§7):
 

@@ -3,7 +3,7 @@
 The reference carries one ``Ray`` / ``hit_record`` per thread
 (``simulation/ray.h:8-25``, ``simulation/hit_record.h:12-25``). Here a whole
 wavefront is one pytree of ``(N, ...)`` arrays — structure-of-arrays so every
-field is a contiguous, VPU-friendly buffer.
+field is a contiguous, vector-friendly buffer.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """3-vector math over ``(..., 3)`` arrays.
 
-TPU-native counterpart of the reference's scalar ``vectorgpu::vec3``
+Wavefront counterpart of the reference's scalar ``vectorgpu::vec3``
 (reference ``utils/vec3.h:10-104``): instead of a per-thread 3-float struct,
-every operation is batched over leading axes so the VPU sees wide, regular
+every operation is batched over leading axes so the device sees wide, regular
 work. Colors and points are plain ``(..., 3)`` float32 arrays.
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """ctypes bindings to the native C++ runtime library (libptnative.so).
 
 The reference's host runtime is C++ (OBJ_Loader.hpp, stb_image_write, scene
-upload drivers); the TPU framework keeps a native runtime too for the
+upload drivers); this framework keeps a native runtime too for the
 host-side hot paths: OBJ parsing and PNG encoding. Built by
 ``pathtracer_tpu/native/build.py`` (g++, no external deps); every entry point
 has a pure-Python fallback so the framework works unbuilt.

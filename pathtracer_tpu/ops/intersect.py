@@ -1,6 +1,6 @@
 """Branch-free ray/primitive intersection, vectorized over (ray, prim) pairs.
 
-TPU-native replacement for the reference's per-thread tagged-union dispatch
+Wavefront replacement for the reference's per-thread tagged-union dispatch
 (``simulation/cuda_object.h:44-92``): every test is evaluated on dense
 arrays and the winner selected by masks — no divergent branches. Exact
 reference semantics are preserved:
@@ -100,7 +100,7 @@ def intersect_triangle(o, d, v0, e1, e2, t_min, t_max):
 def intersect_prims(o, d, prim_type, v0, e1, e2, radius, t_min, t_max):
     """Unified tagged-union test (cuda_object.h:44-92) over broadcastable
     (ray, prim) arrays. Computes both primitive tests densely and selects by
-    the type tag — branch-free for the VPU. Returns (hit, t)."""
+    the type tag — branch-free. Returns (hit, t)."""
     s_hit, s_t = intersect_sphere(o, d, v0, radius, t_min, t_max)
     t_hit, t_t, _, _ = intersect_triangle(o, d, v0, e1, e2, t_min, t_max)
     is_sphere = prim_type == PRIM_SPHERE
@@ -130,7 +130,7 @@ def brute_force_closest(scene: Scene, o, d, t_min, t_max):
 
 
 def hit_records_from_prims(scene: Scene, idx, o, d, t_min, t_max,
-                           valid, packed_rows=None) -> rays_mod.HitRecords:
+                           valid) -> rays_mod.HitRecords:
     """Differentiable hit-record reconstruction.
 
     Given the (detached) winning primitive index per ray, recompute t / p /
@@ -139,36 +139,21 @@ def hit_records_from_prims(scene: Scene, idx, o, d, t_min, t_max,
     as constant, the geometry is differentiable). Mirrors what
     cuda_object.h:45-92 writes into the hit_record, including the sphere UV
     (cuda_object.h:94-102) and the face-normal flip (hit_record.h:21-24)."""
-    # One packed-row fetch instead of seven takes: TPU's native gather is
-    # serialized per row (measured ~4 ms per 57.6k-ray bounce), so per-prim
-    # hit fields ride either ``packed_rows`` — the winner's row emitted by
-    # the cluster-march kernel itself (ops/cluster_sweep; field-major
-    # (16, R) so the ray dim stays on vector lanes) — or a single take/
-    # one-hot matmul (ops/gather.exact_rows), whose backward (a scatter-add
-    # matmul) carries the v0/e1/e2 gradients. ``packed_rows`` is detached:
-    # only the non-differentiable path may pass it.
-    if packed_rows is not None:
-        def f(i):
-            return packed_rows[i]
+    # One packed-row gather instead of seven; its backward (a scatter-add)
+    # carries the v0/e1/e2 gradients.
+    packed = jnp.concatenate([
+        scene.prim_type.astype(jnp.float32)[:, None],
+        scene.v0, scene.e1, scene.e2,
+        scene.radius[:, None], scene.tri_normal,
+        scene.prim_mat.astype(jnp.float32)[:, None],
+    ], axis=1)
+    rows = jnp.take(packed, idx, axis=0)
 
-        def f3(i):
-            return jnp.stack([packed_rows[i], packed_rows[i + 1],
-                              packed_rows[i + 2]], axis=1)
-    else:
-        from pathtracer_tpu.ops.gather import exact_rows
-        packed = jnp.concatenate([
-            scene.prim_type.astype(jnp.float32)[:, None],
-            scene.v0, scene.e1, scene.e2,
-            scene.radius[:, None], scene.tri_normal,
-            scene.prim_mat.astype(jnp.float32)[:, None],
-        ], axis=1)
-        rows = exact_rows(packed, idx)
+    def f(i):
+        return rows[:, i]
 
-        def f(i):
-            return rows[:, i]
-
-        def f3(i):
-            return rows[:, i:i + 3]
+    def f3(i):
+        return rows[:, i:i + 3]
     ptype = f(0).astype(jnp.int32)
     v0 = f3(1)
     e1 = f3(4)

@@ -3,7 +3,7 @@
 Bit-exact port of the reference's code math (``utils/morton_code.h:20-45``)
 as vectorized uint32 ops, jittable on device — the reference computes codes
 on the host and std::stable_sorts there (morton_code.h:64-75); here both the
-code generation and the sort run on the TPU.
+code generation and the sort run on the device.
 
 Key layout follows the reference's 64-bit union (morton_code.h:11-17):
 key = (mortonCode << 32) | objectID, so the object id tie-breaks equal

@@ -5,8 +5,8 @@ Replaces the reference's per-thread 64-slot traversal stack
 carries a single node pointer; at an internal node a box hit descends to the
 left child and a miss follows the precomputed ``escape`` link (next subtree
 in depth-first order); leaves intersect their primitive and follow escape.
-The per-ray state is (ptr, t_best, best_prim) — three registers instead of a
-stack, which is what keeps the VPU lanes dense.
+The per-ray state is (ptr, t_best, best_prim) — three values instead of a
+stack, so the whole wavefront steps as dense arrays.
 
 Data layout is gather-optimal: one fused "fat node" table holding box + leaf
 geometry + links, so each traversal step costs exactly one row gather per
@@ -66,13 +66,16 @@ def pack_fat_nodes(scene: Scene, bvh: LBVH) -> FatNodes:
                     done=done)
 
 
-def traverse(nodes: FatNodes, o, d, t_min, t_max,
-             max_steps: int = 0) -> Tuple[jnp.ndarray, jnp.ndarray]:
+def traverse(nodes: FatNodes, o, d, t_min, t_max, max_steps: int = 0,
+             with_steps: bool = False) -> Tuple[jnp.ndarray, ...]:
     """Closest-hit query for a batch of rays.
 
-    Returns (prim_idx (R,) int32, t (R,), valid (R,) bool). ``max_steps`` bounds the
-    batched loop (default 4 * node count — a malformed-tree guard; a correct
-    DFS visits each node at most once per ray).
+    Returns (prim_idx (R,) int32, t (R,), valid (R,) bool), plus the loop's
+    step count when ``with_steps``: the wavefront steps until its slowest
+    ray is done, and each step is one while-loop iteration whose predicate
+    the host reads back. ``max_steps`` bounds the batched loop (default
+    4 * node count — a malformed-tree guard; a correct DFS visits each node
+    at most once per ray).
     """
     num_rows = nodes.fdata.shape[0]
     done = nodes.done
@@ -110,10 +113,11 @@ def traverse(nodes: FatNodes, o, d, t_min, t_max,
     ptr0 = jnp.zeros(r, jnp.int32)
     t0 = jnp.full(r, t_max, jnp.float32)
     best0 = jnp.full(r, -1, jnp.int32)
-    _, t_best, best, _ = jax.lax.while_loop(
+    _, t_best, best, steps = jax.lax.while_loop(
         cond, body, (ptr0, t0, best0, jnp.int32(0)))
     valid = best >= 0
-    return jnp.where(valid, best, 0), t_best, valid
+    out = (jnp.where(valid, best, 0), t_best, valid)
+    return out + (steps,) if with_steps else out
 
 
 def make_bvh_closest_hit(scene: Scene, bvh: LBVH, t_min: float):

@@ -1,7 +1,7 @@
-"""Multi-chip / multi-host parallelism.
+"""Multi-device / multi-host parallelism.
 
 The reference is single-process, single-GPU (SURVEY §2.3); its only
-"communication" is cudaMemcpy H2D/D2H. This package is the TPU-native
+"communication" is cudaMemcpy H2D/D2H. This package is the
 distributed backend SURVEY §5 calls for: a device mesh over the ray
 wavefront, scene + BVH replicated, shard_map-sharded rendering with XLA
 collectives, and psum gradient all-reduce for the inverse-rendering path.

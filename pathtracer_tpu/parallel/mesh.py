@@ -2,13 +2,13 @@
 
 Replaces the reference's absent distributed story (SURVEY §2.3 bottom rows):
 ``jax.distributed.initialize`` for multi-host process groups, then one
-``jax.sharding.Mesh`` whose axes map onto ICI. Two logical axes:
+``jax.sharding.Mesh`` over the devices. Two logical axes:
 
-- ``rays``: data parallelism over the pixel/ray wavefront — each chip owns a
-  contiguous shard of the flattened framebuffer (the TPU analogue of the
+- ``rays``: data parallelism over the pixel/ray wavefront — each device owns a
+  contiguous shard of the flattened framebuffer (the analogue of the
   reference's 2-D thread grid, main.cu:275-280).
 - ``spp``: sample parallelism — the per-thread spp loop (main.cu:283-289)
-  split across chips, combined with one ``psum`` over the axis.
+  split across devices, combined with one ``psum`` over the axis.
 
 Scene, BVH and camera are replicated (one-time broadcast), so all steady-state
 collective traffic is the spp-axis psum + the final framebuffer gather.
@@ -52,10 +52,10 @@ def make_mesh(devices: Optional[Sequence] = None,
               spp_axis_size: int = 1) -> Mesh:
     """Build the (rays, spp) mesh over all (or the given) devices.
 
-    ``spp_axis_size`` chips cooperate on samples for the same pixels; the
+    ``spp_axis_size`` devices cooperate on samples for the same pixels; the
     remaining factor shards pixels. Default 1: pure ray data-parallelism —
     rays are embarrassingly parallel, so this is the right default until spp
-    is large enough that per-chip sample batches go underutilized
+    is large enough that per-device sample batches go underutilized
     (the BASELINE 512-spp config).
     """
     if devices is None:

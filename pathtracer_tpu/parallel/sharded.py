@@ -1,8 +1,8 @@
 """shard_map-sharded rendering over the (rays, spp) mesh.
 
-The TPU-native replacement for the reference's single-GPU pixel grid
+The multi-device replacement for the reference's single-GPU pixel grid
 (``main.cu:271-294``): the flattened framebuffer is sharded across the
-``rays`` mesh axis, samples across the ``spp`` axis; each chip runs the same
+``rays`` mesh axis, samples across the ``spp`` axis; each device runs the same
 wavefront core (render/renderer.render_sum) on its shard; one ``psum`` over
 the spp axis accumulates sample sums. Scene, BVH and camera ride in
 replicated (one-time broadcast — the device_put analogue of the reference's
@@ -11,8 +11,8 @@ cudaMemcpy scene upload, main.cu:176-195).
 Per-(pixel, sample) RNG keys are global — derived from the pixel chunk's
 first global linear index and the global sample index — so every (pixel,
 sample) radiance is a pure function of (seed, chunk layout), independent of
-which chip computed it. With the same ``ray_chunk`` the sharded and
-single-chip renders agree to fp-summation-order tolerance; the same seed on
+which device computed it. With the same ``ray_chunk`` the sharded and
+single-device renders agree to fp-summation-order tolerance; the same seed on
 the same mesh is bit-identical (determinism requirement, SURVEY §5).
 """
 from __future__ import annotations
@@ -33,11 +33,10 @@ from pathtracer_tpu.parallel.mesh import RAYS_AXIS, SPP_AXIS
 
 # Minimum chunks per device for the round-robin interleave. Contiguous
 # raster sharding load-imbalances badly — sky shards terminate in one
-# bounce while geometry shards trace full paths (measured 0.73 mean/max
-# executed-query efficiency on the bunny frame, SCALING_proxy.json r4);
-# striding chunks across the frame gives every device a cross-section of
-# the scene (0.97+ measured). More chunks = finer balance but more
-# lax.map steps per device.
+# bounce while geometry shards trace full paths (executed-query counts per
+# shard, mean/max 0.73 on the bunny frame over 8 shards); striding chunks
+# across the frame gives every device a cross-section of the scene (0.97+).
+# More chunks = finer balance but more lax.map steps per device.
 K_INTERLEAVE = 4
 
 
@@ -89,13 +88,13 @@ def make_sharded_renderer(cfg: RenderConfig, mesh: Mesh,
     shard_rays = P(RAYS_AXIS)
 
     def device_fn(scene, bvh, cam, seed, rows, cols):
-        # global sample offset of this chip's spp shard
+        # global sample offset of this device's spp shard
         spp_idx = jax.lax.axis_index(SPP_AXIS)
         base_key = jax.random.PRNGKey(seed[0])
         acc = renderer_mod.render_sum(
             scene, bvh, cam, base_key, rows, cols, cfg_local, spp_local,
             sample_offset=spp_idx * spp_local)
-        # combine sample sums across the spp axis (ICI all-reduce)
+        # combine sample sums across the spp axis (all-reduce)
         acc = jax.lax.psum(acc, SPP_AXIS)
         # assemble the replicated framebuffer across the rays axis
         return jax.lax.all_gather(acc, RAYS_AXIS, axis=0, tiled=True)
@@ -130,10 +129,6 @@ def _cached_sharded(cfg: RenderConfig, mesh: Mesh, with_bvh: bool):
 def sharded_render_image(scene: Scene, cam, cfg: RenderConfig, mesh: Mesh,
                          bvh=None):
     """Render ``cfg`` over ``mesh``; builds the LBVH on device if needed."""
-    if cfg.accel == "bvh" and bvh is None:
-        from pathtracer_tpu.accel.lbvh import build_lbvh
-        bvh = build_lbvh(scene)
-    if cfg.accel != "bvh":
-        bvh = None
+    bvh = renderer_mod.prepare_bvh(cfg, scene, bvh)
     render = _cached_sharded(cfg, mesh, bvh is not None)
     return render(scene, bvh, cam, cfg.seed)

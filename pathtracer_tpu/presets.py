@@ -41,8 +41,8 @@ def combined_scene(aspect: float = 16.0 / 9.0) -> Tuple[Scene, Camera]:
     b = SceneBuilder()
     add_cornell_room(b, CORNELL_DIR)
 
-    # bunny, scaled to ~250 units, centered on the floor (env > reference
-    # scan > vendored assets/bunny.obj, like the flagship scene)
+    # bunny, scaled to ~250 units, centered on the floor (PT_BUNNY_OBJ >
+    # vendored assets/bunny.obj, like the flagship scene)
     obj_path = resolve_bunny_obj()
     if obj_path is not None:
         verts, faces = load_obj(obj_path)
@@ -66,6 +66,16 @@ def combined_scene(aspect: float = 16.0 / 9.0) -> Tuple[Scene, Camera]:
     cam = make_camera((278, 273, -800), (278, 273, 0), 40, aspect,
                       aperture=0, focus_dist=10, time0=0.0, time1=1.0)
     return b.build(), cam
+
+
+def scale_config(cfg: RenderConfig, scale: float) -> RenderConfig:
+    """Scale a preset's resolution and spp (``--scale``; 0.25 gives the
+    quick proxy runs). Depth and everything else stay as they are."""
+    if scale == 1.0:
+        return cfg
+    return cfg.replace(width=max(8, int(cfg.width * scale)),
+                       height=max(8, int(cfg.height * scale)),
+                       spp=max(1, int(cfg.spp * scale)))
 
 
 def get_preset(name: str):

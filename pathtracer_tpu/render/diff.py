@@ -111,27 +111,24 @@ def make_train_step(cfg: RenderConfig,
     repl = P()
     shard_rays = P(RAYS_AXIS)
 
-    def device_loss(params, scene, bvh, cam, key, rows, cols, target, w):
-        spp_idx = jax.lax.axis_index(SPP_AXIS)
-        sse, n = _loss_local(params, scene, bvh, cam, key, rows, cols,
-                             target, w, cfg_local, spp_local,
-                             sample_offset=spp_idx * spp_local)
-        # NOTE: with spp_size > 1 each spp-shard evaluates MSE of its own
-        # spp_local-sample estimate (a slightly higher-variance objective
-        # than full-spp MSE); with spp_size == 1 this is exactly the full
-        # objective. Gradients all-reduce over both axes either way.
-        sse = jax.lax.psum(sse, (RAYS_AXIS, SPP_AXIS))
-        n = jax.lax.psum(n, (RAYS_AXIS, SPP_AXIS))
-        return sse / n
-
     def device_step(params, opt_state, scene, bvh, cam, target, seed, rows,
                     cols, w):
         key = jax.random.PRNGKey(seed[0])
-        loss, grads = jax.value_and_grad(device_loss)(
-            params, scene, bvh, cam, key, rows, cols, target, w)
-        # value_and_grad of a psum'd loss already yields the global gradient
-        # on every device (the psum in the forward is its own transpose) —
-        # the all-reduce rides the backward pass, overlapped by XLA.
+        spp_idx = jax.lax.axis_index(SPP_AXIS)
+        # NOTE: with spp_size > 1 each spp-shard evaluates MSE of its own
+        # spp_local-sample estimate (a slightly higher-variance objective
+        # than full-spp MSE); with spp_size == 1 this is exactly the full
+        # objective. The loss is sum(sse) / sum(n) over both axes, so its
+        # gradient is the all-reduced sum of the local SSE gradients over
+        # the global pixel count.
+        (sse, n), grads = jax.value_and_grad(_loss_local, has_aux=True)(
+            params, scene, bvh, cam, key, rows, cols, target, w, cfg_local,
+            spp_local, sample_offset=spp_idx * spp_local)
+        axes = (RAYS_AXIS, SPP_AXIS)
+        n = jax.lax.psum(n, axes)
+        loss = jax.lax.psum(sse, axes) / n
+        grads = jax.tree_util.tree_map(lambda g: jax.lax.psum(g, axes) / n,
+                                       grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         return optax.apply_updates(params, updates), opt_state, loss
 

@@ -18,7 +18,6 @@ from typing import Tuple
 import jax.numpy as jnp
 
 from pathtracer_tpu.core import sampling, vec
-from pathtracer_tpu.ops.gather import exact_rows
 from pathtracer_tpu.scene.scene import PRIM_SPHERE, Scene
 
 FOUR_PI = 4.0 * vec.PI
@@ -49,7 +48,7 @@ def sample_lights(scene: Scene, u: jnp.ndarray
 
     li = jnp.clip((u[:, 0] * num_lights).astype(jnp.int32), 0,
                   num_lights - 1)
-    rows = exact_rows(table, li, force_matmul=True)
+    rows = jnp.take(table, li, axis=0)
     ptype = rows[:, 0]
     v0 = rows[:, 1:4]
     e1 = rows[:, 4:7]
@@ -109,8 +108,7 @@ def metal_lobe_pdf(w_unit, r_unit, fuzz):
 
 
 def direct_lighting(scene: Scene, rec_p, rec_normal, albedo, closest_hit_fn,
-                    u, eps: float = 1e-3, mis: bool = True, active=None,
-                    glossy=None):
+                    u, eps: float = 1e-3, mis: bool = True, glossy=None):
     """One-sample NEE estimate of direct radiance at a diffuse/glossy hit.
 
     L = w * albedo * p_lobe(w_l) * cos_l * emit / (dist^2 * pdf_area), where
@@ -122,9 +120,6 @@ def direct_lighting(scene: Scene, rec_p, rec_normal, albedo, closest_hit_fn,
     emissive hits, so light-through-specular paths stop being firefly-only).
     The shadow ray uses the *unnormalized* segment as its direction, so the
     light point sits at t == 1: any accepted hit with t < 1 - eps occludes.
-    ``active`` (optional (R,) bool): rays whose result the caller will
-    discard are queried with d == 0 so dead-ray-aware accel structures
-    (cluster sweep) retire them for free.
     Returns (radiance (R,3), valid (R,) bool).
     """
     import jax
@@ -143,17 +138,10 @@ def direct_lighting(scene: Scene, rec_p, rec_normal, albedo, closest_hit_fn,
     cos_s = vec.dot(rec_normal, seg) * inv_dist
     cos_l = jnp.abs(vec.dot(n_l, seg)) * inv_dist  # double-sided emitter
 
-    seg_q = seg if active is None else jnp.where(active[:, None], seg, 0.0)
-    # occlusion-specialized query when the accel offers one (cluster march:
-    # no binning sort/unsort, march stops at the light via t_max = 1)
-    shadow_fn = getattr(closest_hit_fn, "query_shadow", None)
-    if shadow_fn is not None:
-        _, t_sh, sh_valid = shadow_fn(jax.lax.stop_gradient(origin),
-                                      jax.lax.stop_gradient(seg_q),
-                                      active)
-    else:
-        _, t_sh, sh_valid = closest_hit_fn(jax.lax.stop_gradient(origin),
-                                           jax.lax.stop_gradient(seg_q))
+    # the accel's near-zero-t_min shadow query when it offers one
+    shadow_fn = getattr(closest_hit_fn, "query_shadow", closest_hit_fn)
+    _, t_sh, sh_valid = shadow_fn(jax.lax.stop_gradient(origin),
+                                  jax.lax.stop_gradient(seg))
     unoccluded = (~sh_valid) | (t_sh >= 1.0 - eps)
 
     p_lobe = jnp.maximum(cos_s, 0.0) * vec.PI_INV

@@ -15,22 +15,19 @@ from pathtracer_tpu.core.camera import Camera, make_camera
 from pathtracer_tpu.io.obj import load_obj
 from pathtracer_tpu.scene.scene import Scene, SceneBuilder
 
-REFERENCE_OBJ = "/root/reference/models/bunny/bunny.obj"
-# Vendored standalone asset (VERDICT r4 #6): a grid-cluster decimation of
-# the public-domain Stanford bunny scan (1,817 v / 3,616 f), derived by
-# tools/make_bunny_asset.py and committed under assets/ so the flagship
-# scene is reproducible without the reference tree.
+# Vendored asset: a grid-cluster decimation of the public-domain Stanford
+# bunny scan (1,817 v / 3,616 f), derived by tools/make_bunny_asset.py and
+# committed under assets/ so the flagship scene is pinned by the repo.
 ASSET_OBJ = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "assets", "bunny.obj")
 
 
 def resolve_bunny_obj() -> str | None:
-    """Resolution order: PT_BUNNY_OBJ env > reference tree (full-res scan,
-    used for parity renders) > vendored assets/bunny.obj. None only when
-    all three are missing (the procedural stand-in then applies)."""
+    """Resolution order: PT_BUNNY_OBJ env > vendored assets/bunny.obj. None
+    only when both are missing (the procedural stand-in then applies)."""
     env = os.environ.get("PT_BUNNY_OBJ")
-    for p in (env, REFERENCE_OBJ, ASSET_OBJ):
+    for p in (env, ASSET_OBJ):
         if p and os.path.exists(p):
             return p
     return None
@@ -70,7 +67,7 @@ def bunny_world(obj_path: str | None = None, scale: float = 20.0,
     if obj_path is not None and os.path.exists(obj_path):
         verts, faces = load_obj(obj_path)
     else:
-        # no env / reference / vendored asset at all: procedural stand-in
+        # no env / vendored asset at all: procedural stand-in
         # keeps the flagship mesh pipeline runnable; images differ from
         # the Stanford bunny (scene/standalone_assets.py)
         import sys

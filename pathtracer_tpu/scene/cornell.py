@@ -14,20 +14,19 @@ from pathtracer_tpu.core.camera import Camera, make_camera
 from pathtracer_tpu.io.obj import load_obj
 from pathtracer_tpu.scene.scene import Scene, SceneBuilder
 
-CORNELL_DIR = os.environ.get(
-    "PT_CORNELL_DIR", "/root/reference/models/cornellbox")
+# optional directory of the Cornell OBJ parts; unset -> built-in data
+CORNELL_DIR = os.environ.get("PT_CORNELL_DIR")
 MARBLE_PNG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))),
     "assets", "textures", "marble.png")
 
 
 def _cornell_part(obj_dir: str, name: str):
-    """(verts, faces) for a Cornell part: the reference's OBJ when present,
-    else the built-in canonical data (identical geometry — both are the
-    published Cornell box dataset; scene/standalone_assets.py)."""
-    path = os.path.join(obj_dir, name + ".obj")
-    if os.path.exists(path):
-        return load_obj(path)
+    """(verts, faces) for a Cornell part: the OBJ in ``obj_dir`` when given,
+    else the built-in canonical data (the published Cornell box dataset;
+    scene/standalone_assets.py)."""
+    if obj_dir:
+        return load_obj(os.path.join(obj_dir, name + ".obj"))
     from pathtracer_tpu.scene.standalone_assets import cornell_mesh
     return cornell_mesh(name)
 

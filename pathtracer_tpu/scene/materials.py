@@ -45,13 +45,9 @@ def sample_texture(scene: Scene, tex_id, uv):
     """Nearest-neighbor image texture lookup at (u, v); v=0 is the bottom
     row (sphere UV convention, cuda_object.h:94-102).
 
-    TPU-native two-stage fetch instead of a per-ray ``jnp.take`` (which XLA
-    serializes row-by-row on TPU — the pattern this repo bans in bounce
-    loops, docs/DESIGN.md): stage 1 gathers each ray's scanline
-    ``(tex, y)`` as a one-hot MXU matmul over (K*TH) rows (ops/gather);
-    stage 2 selects the x texel with a one-hot masked sum on the VPU. The
-    one-hot traffic is R x K*TH + R x TW — bounded even for large atlases,
-    where a flat one-hot over K*TH*TW texels would not be.
+    Two-stage fetch: stage 1 gathers each ray's scanline ``(tex, y)``;
+    stage 2 selects the x texel with a one-hot masked sum, whose backward
+    stays a dense select rather than a scatter.
     """
     k, th, tw = (scene.textures.shape[0], scene.textures.shape[1],
                  scene.textures.shape[2])
@@ -65,9 +61,8 @@ def sample_texture(scene: Scene, tex_id, uv):
     x = jnp.minimum((u * tw).astype(jnp.int32), tw - 1)
     y = jnp.minimum(((1.0 - v) * th).astype(jnp.int32), th - 1)
     tid = jnp.clip(tex_id, 0, k - 1)
-    from pathtracer_tpu.ops.gather import exact_rows
     scanlines = scene.textures.reshape(k * th, tw * 3)
-    rows = exact_rows(scanlines, tid * th + y, force_matmul=True)
+    rows = jnp.take(scanlines, tid * th + y, axis=0)
     rows3 = rows.reshape(rows.shape[0], tw, 3)
     sel = (jax.lax.broadcasted_iota(jnp.int32, (rows.shape[0], tw), 1)
            == x[:, None])
@@ -82,11 +77,9 @@ def scatter(scene: Scene, rec: HitRecords, in_dir, uniforms) -> ScatterResult:
     reflect/refract coin. One ``jax.random.uniform`` call feeds the whole
     bounce — the stateless replacement for per-thread curand draws.
     """
-    # Single packed-row MXU gather for all material fields (TPU's native
-    # gather is serialized per row; see ops/gather.exact_rows). Integer tags
-    # ride as f32 (exact below 2^24); albedo/emit keep grads through
-    # concatenate + the matmul's scatter-add backward.
-    from pathtracer_tpu.ops.gather import exact_rows
+    # Single packed-row gather for all material fields. Integer tags ride
+    # as f32 (exact below 2^24); albedo/emit keep grads through concatenate
+    # + the gather's scatter-add backward.
     packed = jnp.concatenate([
         scene.mat_type.astype(jnp.float32)[:, None],
         scene.albedo,
@@ -94,11 +87,7 @@ def scatter(scene: Scene, rec: HitRecords, in_dir, uniforms) -> ScatterResult:
         scene.emit,
         scene.tex_id.astype(jnp.float32)[:, None],
     ], axis=1)
-    # material tables are small (M ~ 10^0..10^2): prefer the one-hot matmul
-    # — the native TPU gather serializes per OUTPUT row (~ms per 57.6k
-    # wavefront) regardless of table size. Applied per the central policy
-    # in ops/gather (PT_GATHER env knob; matmul on TPU only).
-    rows = exact_rows(packed, rec.mat_id, force_matmul=True)
+    rows = jnp.take(packed, rec.mat_id, axis=0)
     mtype = rows[:, 0].astype(jnp.int32)
     albedo = rows[:, 1:4]
     fuzz = rows[:, 4]

@@ -89,9 +89,8 @@ def render_with_checkpoints(scene, cam, cfg: RenderConfig,
 
     ``path=None`` skips persistence but keeps the bounded-execution shape:
     each chunk is its own device program, so a multi-minute render never
-    runs as one monolithic execution (long executions can trip the TPU
-    runtime's watchdog and kill the worker — observed on the reference
-    800x450x100spp workload).
+    runs as one monolithic execution (progress, resumability, and no
+    single device program that runs for minutes).
 
     Returns the gamma-2 image (H, W, 3) float32.
     """

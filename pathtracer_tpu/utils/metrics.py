@@ -7,7 +7,7 @@ window-title FPS counter (``main.cu:469-476``, ``main.cu:342-360``) with:
   readback) with a report table,
 - :func:`mrays_per_s` — the canonical throughput derivation (pixels x spp x
   depth closest-hit queries per wall-second),
-- :func:`trace_context` — a ``jax.profiler`` trace scope for TPU profiling
+- :func:`trace_context` — a ``jax.profiler`` trace scope for device profiling
   (replacing "cudaDeviceReset for Nsight", SURVEY §5).
 """
 from __future__ import annotations

@@ -139,9 +139,15 @@ def test_sharded_train_step_matches_single():
     mesh8 = make_mesh(jax.devices()[:8], spp_axis_size=1)
     s1 = diff.make_train_step(cfg8, optimizer)
     s8 = diff.make_train_step(cfg8, optimizer, mesh=mesh8)
-    _, _, la = s1(params, optimizer.init(params), scene, None, cam, target, 5)
-    _, _, lb = s8(params, optimizer.init(params), scene, None, cam, target, 5)
+    pa, _, la = s1(params, optimizer.init(params), scene, None, cam, target,
+                   5)
+    pb, _, lb = s8(params, optimizer.init(params), scene, None, cam, target,
+                   5)
     np.testing.assert_allclose(float(la), float(lb), rtol=1e-5)
+    # the gradient is all-reduced: every pixel's contribution, not just
+    # the shard that owns the returned replica
+    np.testing.assert_allclose(np.asarray(pa["albedo"]),
+                               np.asarray(pb["albedo"]), atol=1e-6)
 
 
 def test_dryrun_multichip():

@@ -223,7 +223,7 @@ def test_lean_rng_unbiased(monkeypatch):
 def test_fast_rng_uniform_and_layout_invariant(monkeypatch):
     """PT_RNG_FAST=1: one counter-based threefry sweep. The draws must be
     (a) uniform on [0, 1), (b) a pure function of ray id (lane-permutation
-    invariant — the sorted-wavefront contract), (c) distinct across rays
+    invariant), (c) distinct across rays
     and columns."""
     monkeypatch.setenv("PT_RNG_FAST", "1")
     import jax
@@ -283,7 +283,7 @@ def test_hash_rng_uniform_layout_invariant_decorrelated(monkeypatch):
     for c in range(6):
         corr = np.corrcoef(u[:-1, c], u[1:, c])[0, 1]
         assert abs(corr) < 4 / np.sqrt(4095), (c, corr)
-    # pure function of ray id (sorted-wavefront contract)
+    # pure function of ray id (lane-permutation invariant)
     perm = np.asarray(jax.random.permutation(jax.random.PRNGKey(0), 4096))
     u_perm = np.asarray(_uniform_by_ray(k, rid[perm], 6))
     np.testing.assert_array_equal(u_perm, u[perm])

@@ -117,36 +117,3 @@ def test_t_min_shadow_epsilon():
     _, _, valid = intersect.brute_force_closest(scene, o, d, 0.001,
                                                 intersect.BIG_T)
     assert not bool(valid[0])
-
-
-def test_matmul_gather_exact():
-    """ops/gather.exact_rows matmul path returns bit-exact rows (the MXU
-    one-hot gather used for hit records / materials on TPU)."""
-    import numpy as np
-    from pathtracer_tpu.ops.gather import exact_rows
-    rng = np.random.default_rng(5)
-    table = jnp.asarray(rng.standard_normal((517, 16)), jnp.float32)
-    idx = jnp.asarray(rng.integers(0, 517, 300), jnp.int32)
-    got = exact_rows(table, idx, force_matmul=True)
-    ref = jnp.take(table, idx, axis=0)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_matmul_gather_gradients():
-    """The matmul gather's backward (scatter-add) matches take's."""
-    import jax
-    import numpy as np
-    from pathtracer_tpu.ops.gather import exact_rows
-    rng = np.random.default_rng(6)
-    table = jnp.asarray(rng.standard_normal((64, 4)), jnp.float32)
-    idx = jnp.asarray(rng.integers(0, 64, 100), jnp.int32)
-
-    def loss_mm(t):
-        return (exact_rows(t, idx, force_matmul=True) ** 2).sum()
-
-    def loss_take(t):
-        return (jnp.take(t, idx, axis=0) ** 2).sum()
-
-    g1 = jax.grad(loss_mm)(table)
-    g2 = jax.grad(loss_take)(table)
-    np.testing.assert_allclose(np.asarray(g1), np.asarray(g2), atol=1e-5)

@@ -53,10 +53,9 @@ f -4 -3 -2
 
 
 def test_obj_reference_assets():
-    """The shipped reference assets parse (the reference never loads them —
-    SURVEY §2.1 mesh-loader row — we do)."""
-    bunny = "/root/reference/models/bunny/bunny.obj"
-    if os.path.exists(bunny):
-        verts, faces = obj_mod.load_obj_python(bunny)
-        assert verts.shape == (2503, 3)
-        assert faces.shape == (4968, 3)
+    """The vendored bunny asset parses (the reference never loads its
+    bunny — SURVEY §2.1 mesh-loader row — we do)."""
+    from pathtracer_tpu.scene.bunny import ASSET_OBJ
+    verts, faces = obj_mod.load_obj_python(ASSET_OBJ)
+    assert verts.shape == (1817, 3)
+    assert faces.shape == (3616, 3)

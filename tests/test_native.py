@@ -9,7 +9,7 @@ from pathtracer_tpu.native import bindings
 pytestmark = pytest.mark.skipif(not bindings.available(),
                                 reason="native lib not built")
 
-BUNNY = "/root/reference/models/bunny/bunny.obj"
+from pathtracer_tpu.scene.bunny import ASSET_OBJ as BUNNY  # noqa: E402
 
 
 def test_native_obj_matches_python(tmp_path):
@@ -32,14 +32,12 @@ f 1 2 4 3
     np.testing.assert_array_equal(f_n, f_p)
 
 
-@pytest.mark.skipif(not __import__("os").path.exists(BUNNY),
-                    reason="reference assets unavailable")
 def test_native_obj_bunny():
     from pathtracer_tpu.io.obj import load_obj as py_load
     v_n, f_n = bindings.load_obj(BUNNY)
     v_p, f_p = py_load(BUNNY)
-    assert v_n.shape == v_p.shape == (2503, 3)
-    assert f_n.shape == f_p.shape == (4968, 3)
+    assert v_n.shape == v_p.shape == (1817, 3)
+    assert f_n.shape == f_p.shape == (3616, 3)
     np.testing.assert_allclose(v_n, v_p, atol=1e-6)
     np.testing.assert_array_equal(f_n, f_p)
 

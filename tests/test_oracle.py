@@ -1,8 +1,8 @@
 """Parity against the CPU reference oracle (pathtracer_tpu/oracle.py).
 
-This is the self-controlled parity claim VERDICT r3 asked for: instead of
-scoring against the reference's stale milestone PNGs (whose generator
-demonstrably differs from the shipped source — BASELINE.md r2), the JAX
+This is the self-controlled parity claim: instead of scoring against the
+reference's stale milestone PNGs (whose generator demonstrably differs from
+the shipped source — tools/fit_reference_world.py), the JAX
 renderer is compared to a direct NumPy port of the reference's exact
 algorithm (main.cu:21-37 integrator, cuda_object.h:45-90 intersections,
 material.h:28-61 scatter, camera.h:58-64 rays) over the SAME scene

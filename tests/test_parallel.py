@@ -1,6 +1,5 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh (SURVEY §4:
-the TPU-world fake backend; conftest forces JAX_PLATFORMS=cpu with
-xla_force_host_platform_device_count=8)."""
+"""Multi-device sharding tests on the 8-device virtual CPU mesh (conftest
+forces JAX_PLATFORMS=cpu with xla_force_host_platform_device_count=8)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,20 +52,19 @@ def test_sharded_spp_axis():
                                atol=1e-5)
 
 
-def test_sharded_streamed_march_matches_single_chip(monkeypatch):
-    """VERDICT r4 #7: the streamed cluster march under shard_map on the
-    8-device mesh — the sharded x streamed-march combination that had
-    never run anywhere — must match the single-chip image. Chunk layout
-    matches (ray_chunk 512 both sides), so the march order and RNG keys
-    are identical; tolerance only covers fp summation order."""
+def test_sharded_streamed_march_matches_single_chip():
+    """The LBVH traversal under shard_map on the
+    8-device mesh must match the single-device image. Chunk layout
+    matches (ray_chunk 512 both sides), so the RNG keys are identical;
+    tolerance only covers fp summation order."""
     from pathtracer_tpu.scene.worlds import get_world
-    monkeypatch.setenv("PT_CLUSTER_STREAM", "1")
     cfg = RenderConfig(width=64, height=32, spp=2, max_depth=3,
-                       accel="cluster", ray_chunk=512, scene="random")
+                       accel="bvh", ray_chunk=512, scene="random")
     scene, cam = get_world("random")
-    single = make_renderer(cfg, with_bvh=False)(scene, None, cam, 7)
+    bvh = build_lbvh(scene)
+    single = make_renderer(cfg, with_bvh=True)(scene, bvh, cam, 7)
     mesh = make_mesh(jax.devices()[:8], spp_axis_size=2)
-    sharded = make_sharded_renderer(cfg, mesh)(scene, None, cam, 7)
+    sharded = make_sharded_renderer(cfg, mesh)(scene, bvh, cam, 7)
     assert np.isfinite(np.asarray(sharded)).all()
     np.testing.assert_allclose(np.asarray(sharded), np.asarray(single),
                                atol=1e-5)

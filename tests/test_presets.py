@@ -31,7 +31,7 @@ def test_combined_scene_contents():
     from pathtracer_tpu.scene.scene import (MAT_DIELECTRIC, MAT_EMISSIVE,
                                             MAT_LAMBERTIAN, MAT_METAL)
     scene, cam = combined_scene()
-    assert scene.num_prims > 4900  # bunny's 4,968 triangles dominate
+    assert scene.num_prims > 3616  # the bunny's 3,616 triangles dominate
     mtypes = set(np.asarray(scene.mat_type).tolist())
     assert {MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC,
             MAT_EMISSIVE} <= mtypes
@@ -53,34 +53,28 @@ def test_cli_preset_accel_override(tmp_path):
     BASELINE configs on the production accel)."""
     from pathtracer_tpu.__main__ import build_parser
     args = build_parser().parse_args(
-        ["--preset", "cornell-direct", "--accel", "cluster", "--rr"])
-    assert args.accel == "cluster" and args.rr
+        ["--preset", "cornell-direct", "--accel", "bvh", "--rr"])
+    assert args.accel == "bvh" and args.rr
     # default accel stays None so presets keep their own unless overridden
     args2 = build_parser().parse_args(["--preset", "cornell-direct"])
     assert args2.accel is None
 
 
 def test_auto_accel_policy():
-    """accel="auto" (the production default) resolves by scene size: the
-    dense tensor sweep below K_AUTO_ACCEL_PRIMS (small scenes measured
-    faster dense on chip: cornell 18.2 vs 10.5 Mrays/s, random 15.1 vs
-    13.6), the cluster march at or above it (bunny 16.9 vs ~3.2)."""
-    from pathtracer_tpu.config import (K_AUTO_ACCEL_PRIMS, RenderConfig,
-                                       resolve_accel)
+    """accel="auto" (the production default) is the dense sweep at every
+    scene size — the H100 crossover table in PERF.md found no size where
+    the LBVH traversal wins: the Triton kernel on a GPU, the XLA sweep
+    elsewhere."""
+    from pathtracer_tpu.config import RenderConfig, resolve_accel
 
     assert RenderConfig().accel == "auto"
-    assert resolve_accel("auto", K_AUTO_ACCEL_PRIMS - 1) == "tensor"
-    assert resolve_accel("auto", K_AUTO_ACCEL_PRIMS) == "cluster"
+    assert resolve_accel("auto", platform="gpu") == "pallas"
+    assert resolve_accel("auto", platform="cpu") == "tensor"
+    assert resolve_accel("auto") == "tensor"  # these tests run on the CPU
     # explicit choices pass through untouched
-    for a in ("cluster", "tensor", "pallas", "bvh", "brute"):
-        assert resolve_accel(a, 10) == a
-    # the flagship scenes land on their measured-best structure
-    from pathtracer_tpu.scene.worlds import get_world
-    bunny, _ = get_world("bunny")
-    assert resolve_accel("auto", bunny.num_prims) == "cluster"
-    from pathtracer_tpu.scene.cornell import cornell_box
-    cb, _ = cornell_box(variant="spheres")
-    assert resolve_accel("auto", cb.num_prims) == "tensor"
+    for a in ("tensor", "pallas", "bvh", "brute"):
+        assert resolve_accel(a) == a
+        assert resolve_accel(a, platform="gpu") == a
 
 
 def test_auto_accel_renders_and_matches_explicit():
@@ -99,3 +93,14 @@ def test_auto_accel_renders_and_matches_explicit():
     expl = np.asarray(render_image(scene, cam,
                                    RenderConfig(accel="tensor", **base)))
     np.testing.assert_array_equal(auto, expl)
+
+
+def test_cli_requires_gpu_without_platform(tmp_path, capsys):
+    """No GPU and no --platform: the CLI refuses instead of silently
+    rendering on the CPU."""
+    from pathtracer_tpu.__main__ import main
+    out = tmp_path / "t.png"
+    assert main(["--scene", "test", "--width", "8", "--height", "8",
+                 "--spp", "1", "-o", str(out)]) == 2
+    assert "--platform cpu" in capsys.readouterr().err
+    assert not out.exists()

@@ -1,4 +1,4 @@
-"""Drive the interactive viewer on the real chip through a pty: let it
+"""Drive the interactive viewer on the GPU through a pty: let it
 accumulate frames, send WASD camera moves (which restart accumulation),
 then quit with 'x'. Prints every title line (FPS + passes) seen."""
 import os
@@ -11,11 +11,12 @@ import time
 
 cmd = [sys.executable, "-m", "pathtracer_tpu", "--interactive",
        "--scene", "bunny", "--width", "128", "--height", "72",
-       "--spp", "8", "--max-depth", "6", "--accel", "cluster",
+       "--spp", "8", "--max-depth", "6",
        "--ray-chunk", "9216"]
 master, slave = pty.openpty()
 proc = subprocess.Popen(cmd, stdin=slave, stdout=slave, stderr=slave,
-                        cwd="/root/repo", close_fds=True)
+                        cwd=os.path.dirname(os.path.dirname(
+                            os.path.abspath(__file__))), close_fds=True)
 os.close(slave)
 
 buf = b""

@@ -45,7 +45,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-REF_PNG = "/root/reference/output2/2.lbvh.png"
+REF_PNG = "output2/2.lbvh.png"  # under the reference renderer's tree
 
 
 def build_world(layout: str, sample_num: int, pad_to: int):
@@ -117,7 +117,9 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--width", type=int, default=120)
     p.add_argument("--spp", type=int, default=4)
-    p.add_argument("--out", default="/tmp/fit_world")
+    p.add_argument("--reference", default=".",
+                   help="the reference renderer's source tree")
+    p.add_argument("--out", default="fit_world_out")
     args = p.parse_args()
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -131,7 +133,8 @@ def main():
     from tools.parity import resize_bilinear
 
     os.makedirs(args.out, exist_ok=True)
-    target = read_png(REF_PNG)[..., :3].astype(np.float32)
+    target = read_png(os.path.join(args.reference, REF_PNG))[
+        ..., :3].astype(np.float32)
     w = args.width
     h = int(w / K_ASPECT_RATIO * 0.99999 + 0.5)
     tgt = resize_bilinear(target, h, w)

@@ -1,8 +1,7 @@
 """Derive the vendored standalone bunny asset (assets/bunny.obj).
 
-VERDICT r4 #6: the flagship scene must be reproducible without the
-read-only reference tree. The reference ships the public-domain Stanford
-bunny (`/root/reference/models/bunny/bunny.obj`, 2,503 v / 4,968 f) but
+The flagship scene must be reproducible without the reference tree. The reference ships the public-domain Stanford
+bunny (`models/bunny/bunny.obj`, 2,503 v / 4,968 f) but
 never loads it (main.cu:534 is commented out). This tool produces a
 *derived* asset — a quadric-style decimation of the Stanford scan — and
 writes it in this repo's own OBJ conventions. Run once while the
@@ -66,8 +65,8 @@ def write_obj(path: str, verts: np.ndarray, faces: np.ndarray,
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--src",
-                   default="/root/reference/models/bunny/bunny.obj")
+    p.add_argument("--src", required=True,
+                   help="the reference's models/bunny/bunny.obj")
     p.add_argument("--grid", type=int, default=44)
     p.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -32,7 +32,8 @@ The harness:
    crop mean-color error + crop SSIM.
 
 Results are recorded in BASELINE.md. Run (CPU ok, ~10-20 min):
-    python tools/parity.py [--target lbvh|rtiow|PATH] [--out /tmp/parity]
+    python tools/parity.py --reference DIR [--target lbvh|rtiow|PATH]
+        [--out parity_out]
                            [--quick]
 """
 from __future__ import annotations
@@ -47,9 +48,10 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 TARGETS = {
-    # alias: (path, camera seed, hero crop boxes as (x0f, x1f, y0f, y1f))
+    # alias: (path under the reference tree, camera seed, hero crop boxes
+    # as (x0f, x1f, y0f, y1f))
     "lbvh": (
-        "/root/reference/output2/2.lbvh.png",
+        "output2/2.lbvh.png",
         dict(lookfrom=(14.0, 2.25, 4.0), lookat=(0.0, 0.0, 0.0),
              vfov=20.0, aperture=0.1),
         {
@@ -59,9 +61,9 @@ TARGETS = {
         },
     ),
     "rtiow": (
-        "/root/reference/output/13_2.png",
-        # fitted camera (BASELINE.md r3 row) — the search seeded at the
-        # RTIOW book view (13,2,3) and converged here, the same fit the
+        "output/13_2.png",
+        # fitted camera (tools/fit_reference_world.py) — the search seeded
+        # at the RTIOW book view (13,2,3) and converged here, the same fit the
         # lbvh target found; --quick reproduces the recorded scores
         dict(lookfrom=(14.0, 2.25, 4.0), lookat=(0.0, 0.0, 0.0),
              vfov=20.0, aperture=0.1),
@@ -123,7 +125,10 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--target", default="lbvh",
                    help="alias (%s) or a PNG path" % "/".join(TARGETS))
-    p.add_argument("--out", default="/tmp/parity")
+    p.add_argument("--reference", default=".",
+                   help="the reference renderer's source tree (the "
+                        "target aliases are PNGs under it)")
+    p.add_argument("--out", default="parity_out")
     p.add_argument("--quick", action="store_true",
                    help="skip the camera search, use the stored best fit")
     p.add_argument("--final-width", type=int, default=400)
@@ -142,6 +147,7 @@ def main():
 
     if args.target in TARGETS:
         ref_png, seed_cam, boxes = TARGETS[args.target]
+        ref_png = os.path.join(args.reference, ref_png)
         target = read_png(ref_png)[..., :3].astype(np.float32)
     else:
         # path form: adopt the seed camera + hero-crop boxes of the alias
@@ -153,7 +159,8 @@ def main():
         alias = min(TARGETS.values(),
                     key=lambda t: abs(
                         asp - (lambda im: im.shape[1] / im.shape[0])(
-                            read_png(t[0]))))
+                            read_png(os.path.join(args.reference,
+                                                  t[0])))))
         _, seed_cam, boxes = alias
 
     os.makedirs(args.out, exist_ok=True)
